@@ -4,7 +4,7 @@ Dispersive cQED in the qubit rotating frame: a 3-level transmon coupled
 to a 20-level cavity, dressed (eigen)basis bookkeeping
 (system_parameters.py:75-80 semantics), qubit x/y + cavity x/y drives,
 and the trajectory-reading costs — bandpass + speed-up + dwdt
-(regularization_functions.py:47-95) — at MXU dims.  Prepares one cavity
+(regularization_functions.py:47-95) — at matmul-bound dims.  Prepares one cavity
 photon: dressed |g,1> from the dressed vacuum.
 
 The full-scale job spec lives at examples/jobs/transmon_cavity.json

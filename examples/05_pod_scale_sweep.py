@@ -1,15 +1,15 @@
-"""Pod-scale seed x Hamiltonian sweep (BASELINE config 5).
+"""Multi-device seed x Hamiltonian sweep (BASELINE config 5).
 
 Thousands of parallel GRAPE optimizations — random pulse seeds crossed
 with a Hamiltonian-parameter grid — batched through the parallel layer
-and sharded over a jax.sharding.Mesh.  On a multi-host pod slice,
-initialize with ``qoc_tpu.parallel.mesh.init_distributed()`` first; the
-seed axis shards across hosts over DCN automatically.
+and sharded over a 1-D jax.sharding.Mesh on the seed axis.  Over several
+hosts, initialize with ``qoc_tpu.parallel.mesh.init_distributed()``
+first; the seed axis then shards across all of their devices.
 
 Two programs:
 
   * default: a quick demonstration sweep (512 seeds, 2x2 pi pulse,
-    detuning grid through the fused batched-optimizer kernel);
+    detuning grid through the column-batched xla-cols backend);
   * ``--full``: BASELINE config 5 AT SPEC — **4096 seeds x a 64-point
     cavity-detuning grid on the dim-200 multimode cavity** (qubit x
     100-level cavity), optimized through the column-batched xla-cols
@@ -66,12 +66,10 @@ def run_full(n_seeds=4096, n_grid=64, max_iterations=1200,
     the column-batched backend.  The detuning rides as one constant-weight
     extra operator channel per seed (-1j*dt*delta*n_cavity).
 
-    The seed axis is processed in per-launch chunks of ``chunk`` columns:
-    the single-chip xla-cols program is stable up to 2048 columns on a
-    v5lite (a 4096-column launch exhausts the worker — measured), and a
-    pod run shards the same 4096 seeds to <= 512 columns per device
-    anyway, so chunking is the single-chip image of the pod layout.
-    Chunk c uses ``seed=c`` for its random inits; the detuning pattern
+    The seed axis is processed in per-launch chunks of ``chunk`` columns,
+    which bounds the device memory of one launch; whether one GPU takes
+    all 4096 columns in a single launch has not been measured.  Chunk c
+    uses ``seed=c`` for its random inits; the detuning pattern
     ``grid[s % n_grid]`` is global across chunks, so every grid point
     still sees n_seeds/n_grid distinct random inits."""
     problem, n_op = build_dim200()
@@ -168,11 +166,11 @@ def run_quick():
     print(f"{n_seeds} seeds: best loss {out['best_loss']:.2e}, "
           f"{int(np.sum(out['converged']))} converged")
 
-    # --- detuning sweep OPTIMIZED through the fused batched-optimizer
-    # kernel: every (seed, detuning) cell runs its whole Adam segment
-    # inside one kernel launch per device -------------------------------
+    # --- detuning sweep OPTIMIZED through the column-batched backend:
+    # the detuning rides as a constant-weight extra operator channel ------
     from qoc_tpu.optim.convergence import ConvergenceSettings
-    from qoc_tpu.parallel.pallas_mega_batch import make_mega_batched_runner
+    from qoc_tpu.parallel.batch import make_batched_runner
+    from qoc_tpu.parallel.mesh import batch_sharding
 
     NUM = np.diag([0.0, 1.0]).astype(complex)
     extra = np.stack(
@@ -181,11 +179,14 @@ def run_quick():
         {"rate": 0.01, "update_step": 100, "max_iterations": 2000,
          "conv_target": 1e-6})
     deltas = np.linspace(0.0, 0.2, n_seeds)[:, None].astype(np.float32)
-    u = np.asarray(init_seeds(problem, n_seeds, jax.random.PRNGKey(1)))
-    init_state, run_n, read_u = make_mega_batched_runner(
-        problem, conv, extra_channel_mats=extra, mesh=mesh)
-    state = run_n(init_state(u), 500, extra_weights=deltas)
-    losses = np.asarray(state.losses)
+    shard = batch_sharding(mesh)
+    u = jax.device_put(init_seeds(problem, n_seeds, jax.random.PRNGKey(1)),
+                       shard)
+    init_state, run_segment = make_batched_runner(
+        problem, conv, backend="xla-cols", extra_channel_mats=extra)
+    state = run_segment(init_state(u), jnp.asarray(500, dtype=jnp.int32),
+                        jax.device_put(jnp.asarray(deltas), shard))
+    losses = np.asarray(state.loss)
     print(f"sweep after 500 iters: best {losses.min():.2e} "
           f"worst {losses.max():.2e} (detuning 0..0.2)")
 

@@ -1,7 +1,7 @@
 """Generate the BASELINE config-4 job spec: transmon-cavity state
 transfer at dim 60 (3-level transmon x 20-level cavity), dressed basis,
 bandpass + speed_up + dwdt costs (regularization_functions.py:47-95 at
-MXU dims).
+matmul-bound dims).
 
 Physics: dispersive cQED in the frame rotating at the qubit frequency
 (detunings instead of absolute frequencies keep |dt*H| inside the

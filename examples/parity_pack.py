@@ -15,9 +15,9 @@ cap — grape.py:92 / convergence.py:16-49) through the exact
     pulses by the independent propagator — the measurable form of
     BASELINE.md's "final-unitary fidelity delta < 1e-6" criterion (the TF1
     reference itself cannot execute here: Python 2.7-only, setup.py:4-6);
-  * cross-engine uks agreement: the fused mega kernel vs the XLA scan path
-    over a 200-iteration prefix at full scale (identical math, independent
-    implementations).  Long-horizon whole-run uks comparison is not
+  * cross-engine uks agreement: the auto-routed engine (pscan or
+    associative on a GPU) vs the serial scan path over a 200-iteration
+    prefix at full scale (identical math, independent implementations).  Long-horizon whole-run uks comparison is not
     well-posed — float32 rounding differences amplify chaotically through
     5000 nonconvex iterations, on the reference exactly as here — so the
     per-trajectory criterion is measured on a prefix where rounding noise
@@ -74,8 +74,8 @@ def oracle_fidelity(h5path: str) -> float:
 
 
 def uks_prefix_agreement(cfg: dict, n_iters: int = 200) -> float:
-    """max|u_mega - u_scan| after ``n_iters`` full-scale iterations of the
-    fused kernel vs the XLA scan path (both exact-gradient Adam)."""
+    """max|u_auto - u_scan| after ``n_iters`` full-scale iterations of the
+    auto-routed engine vs the serial scan path (both exact-gradient Adam)."""
     from qoc_tpu import Grape
 
     base = dict(cfg)
@@ -84,9 +84,9 @@ def uks_prefix_agreement(cfg: dict, n_iters: int = 200) -> float:
     base["convergence"] = dict(
         cfg.get("convergence") or {},
         max_iterations=n_iters, conv_target=-1.0, update_step=n_iters)
-    r_mega = Grape(**base, engine="mega")
+    r_auto = Grape(**base, engine="auto")
     r_scan = Grape(**base, engine="scan")
-    return float(np.max(np.abs(np.asarray(r_mega.uks)
+    return float(np.max(np.abs(np.asarray(r_auto.uks)
                                - np.asarray(r_scan.uks))))
 
 
@@ -127,7 +127,7 @@ def run_pack(outdir: str):
               f"ode max_abs_diff={max(ver_ode['max_abs_diff']):.2e}",
               flush=True)
         du = uks_prefix_agreement(cfg)
-        print(f"  uks 200-iter mega-vs-scan max|du|={du:.2e}", flush=True)
+        print(f"  uks 200-iter auto-vs-scan max|du|={du:.2e}", flush=True)
 
         results.append({
             "config": name,
@@ -170,4 +170,4 @@ def run_pack(outdir: str):
 
 
 if __name__ == "__main__":
-    run_pack(sys.argv[1] if len(sys.argv) > 1 else "parity_runs")
+    run_pack(sys.argv[1] if len(sys.argv) > 1 else "build/parity_runs")

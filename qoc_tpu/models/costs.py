@@ -5,7 +5,7 @@ is a monolithic graph-builder keyed by the ``reg_coeffs`` dict.  Here every
 penalty is a pure function ``f(ctx, cfg) -> scalar`` registered by name; the
 total regularized loss is the fidelity loss plus the sum of selected
 penalties.  All functions are jit/vmap/grad-safe, so the same registry
-drives single runs and pod-scale batched sweeps.
+drives single runs and multi-device batched sweeps.
 
 Semantics notes (kept bit-faithful to the reference):
   * l2(x) = 0.5 * sum(x^2)  (tf.nn.l2_loss).
@@ -16,9 +16,9 @@ Semantics notes (kept bit-faithful to the reference):
     [T+1, 2N, V] and are unavailable when use_inter_vecs=False — we raise a
     loud error instead of the reference's silent invalidation (SURVEY.md
     section 7, quirk 8).
-  * 'bandpass' uses an FFT over the time axis; TPU supports this natively
-    (the reference raised on CPU, regularization_functions.py:49-50 — no
-    such restriction here).
+  * 'bandpass' uses an FFT over the time axis on every backend (the
+    reference raised on CPU, regularization_functions.py:49-50 — no such
+    restriction here).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Callable, Dict
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from ..ops.inner_products import inner_product_3d
 
@@ -109,7 +110,7 @@ def d2wdt2_cost(ctx, reg_coeffs):
 @register("bandpass")
 def bandpass_cost(ctx, reg_coeffs):
     """Penalize spectral weight outside [band0, band1]
-    (regularization_functions.py:47-67).  Runs natively on TPU."""
+    (regularization_functions.py:47-67)."""
     alpha = reg_coeffs["bandpass"] / float(ctx.steps)
     fft_mag = jnp.abs(jnp.fft.fft(ctx.ops_weight.astype(jnp.complex64), axis=1))
     band = np.asarray(reg_coeffs["band"], dtype=float)
@@ -132,7 +133,8 @@ def forbidden_cost(ctx, reg_coeffs):
         )
     vecs = ctx.inter_vecs  # [T+1, 2N, V]
     if ctx.v_sorted_iso is not None and reg_coeffs.get("forbid_dressed", False):
-        vecs = jnp.einsum("ji,tjv->tiv", ctx.v_sorted_iso, vecs)
+        vecs = jnp.einsum("ji,tjv->tiv", ctx.v_sorted_iso, vecs,
+                          precision=lax.Precision.HIGHEST)
     total = jnp.asarray(0.0, dtype=vecs.dtype)
     n = ctx.state_num
     for coeff, state in zip(

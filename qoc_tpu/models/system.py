@@ -1,6 +1,6 @@
 """Problem preprocessing: complex Hamiltonians -> device-ready arrays.
 
-TPU-native replacement for core/system_parameters.py.  Instead of a mutable
+JAX-native replacement for core/system_parameters.py.  Instead of a mutable
 god-object, ``ControlProblem.build`` performs all host-side precomputation
 once and returns an immutable spec whose array fields are ready to ship to
 device:
@@ -209,7 +209,7 @@ class ControlProblem:
 
         # generators in real iso (system_parameters.py:194-206) and in
         # native complex64 (the alternative representation SURVEY sec 2.1
-        # contemplates — 2x fewer matmul flops for medium dims on TPU)
+        # contemplates — 2x fewer matmul flops)
         mats = np.stack(
             [c_to_r_mat(-1j * dt * H0)]
             + [c_to_r_mat(-1j * dt * op) for op in Hops]

@@ -4,10 +4,10 @@ The reference (core/tensorflow_state.py:25-46, :77-97) computes one matrix
 exponential per timestep, serially, as an unrolled TF1 graph.  Here the same
 Taylor + scaling-and-squaring approximant is computed for *all* timesteps (and
 optionally all batched problems) in a single batched primitive: every matmul
-in the Taylor recurrence is a ``[T, M, M] x [T, M, M]`` batched matmul that
-tiles directly onto the TPU MXU.  All matmuls run at float32
-``Precision.HIGHEST`` so unitarity stays inside the reference's 1e-4
-``Unitary_error`` budget (SURVEY.md section 7, hard part 4).
+in the Taylor recurrence is a ``[T, M, M] x [T, M, M]`` batched matmul.
+All matmuls run at float32 ``Precision.HIGHEST`` so unitarity stays inside
+the reference's 1e-4 ``Unitary_error`` budget (SURVEY.md section 7, hard
+part 4); on a GPU this also keeps XLA from choosing TF32.
 
 Conventions (matching tensorflow_state.py):
   * ``matexp``  (unitary mode)     uses Taylor orders 0..order  and
@@ -28,13 +28,11 @@ HIGHEST = lax.Precision.HIGHEST
 
 
 def _bmm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Batched matmul at full float32 precision (MXU, no bf16 rounding).
+    """Batched matmul at full float32 precision.
 
-    Measured at Hilbert dim 64 (200 steps, order 8, 2 squarings, TPU
-    v5lite): HIGHEST keeps |unitary_scale - 1| at 1.4e-5; HIGH (3-pass
-    bf16) drifts to 1.2e-2 and DEFAULT to 3.0 — both far past the 1e-4
-    ``Unitary_error`` budget — for only 1.2x / 1.6x speed.  HIGHEST is
-    therefore not configurable.
+    HIGHEST is not configurable: reduced-precision passes (bf16 or TF32)
+    move ``|unitary_scale - 1|`` far past the 1e-4 ``Unitary_error``
+    budget at Hilbert dim 64.
     """
     return jnp.matmul(a, b, precision=HIGHEST)
 
@@ -101,6 +99,6 @@ def weighted_hamiltonians(mats: jnp.ndarray, weights: jnp.ndarray) -> jnp.ndarra
     Returns: ``[T, M, M]``.
 
     This one einsum replaces the reference's per-step ``tf.add_n`` chains —
-    it is a single ``[T,K] x [K, M*M]`` matmul on the MXU.
+    it is a single ``[T,K] x [K, M*M]`` matmul.
     """
     return jnp.einsum("kt,kij->tij", weights, mats, precision=HIGHEST)

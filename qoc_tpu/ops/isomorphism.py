@@ -7,8 +7,8 @@ A complex matrix ``M`` is represented by the real matrix
 
 and a complex vector ``v`` by ``[Re v; Im v]``.  ``iso`` is a *-algebra
 homomorphism: ``iso(AB) = iso(A) iso(B)`` and ``iso(A)^T = iso(A^dagger)``,
-so unitary propagation can run entirely in real float32 arithmetic, which
-maps directly onto the TPU MXU.
+so unitary propagation can run entirely in real float32 arithmetic as
+plain real matmuls.
 
 Reference parity: quantum_optimal_control/helper_functions/grape_functions.py:211-220
 (`c_to_r_mat`, `c_to_r_vec`) and core/analysis.py:18-24 (`RtoCMat`).

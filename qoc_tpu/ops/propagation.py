@@ -2,23 +2,24 @@
 
 The reference builds a TF1 graph with ``steps`` chained matexp nodes
 (tensorflow_state.py:204-261) — graph size O(steps), serial execution.  Here
-propagation is re-designed TPU-first:
+propagation batches over time:
 
   * **Step generators** for *all* timesteps come from one einsum
     (``weighted_hamiltonians``) and the per-step matrix exponentials are one
     *batched* Taylor evaluation ``[T, M, M]`` — every matmul in the series is
-    a T-way batched MXU op instead of T small serial ones.
+    a T-way batched matmul instead of T small serial ones.
   * **Unitary chain** engines:
-      - ``pscan`` (round-5 default at M >= 16): the squaring branch
+      - ``pscan`` (the accelerator default at M >= 16): the squaring branch
         expands into repeated serial sub-steps of the pre-squared Taylor
         propagator and the rank-V matvec-adjoint VJP carries the
         gradient — see ``pscan_chain`` / ``evolve_unitary_pscan``.
       - ``associative``: ``lax.associative_scan`` over batched matmul —
-        O(log T) depth, all compute batched on the MXU.  This is the
-        parallel-in-time option SURVEY.md section 5 calls out; the
-        default only for tiny dimensions now.
+        O(log T) depth, all compute batched.  This is the parallel-in-time
+        option SURVEY.md section 5 calls out; the accelerator default for
+        small dimensions (final-only losses reduce through
+        ``chain_product_tree``).
       - ``scan``: ``lax.scan`` carrying (U, psi) — flops-optimal for large M.
-  * **State transfer** engines mirror the same ladder (tree / pscan /
+  * **State transfer** engines mirror the same ladder (pscan /
     associative / scan), mirroring tensorflow_state.py:244-261 semantics.
 
 Gradient modes:
@@ -52,13 +53,6 @@ def step_propagators(mats, weights, order: int, scaling: int):
     """All per-timestep propagators ``P_t = exp(sum_k w[k,t] mats[k])``.
 
     mats: [K, M, M]; weights: [K, T]  ->  [T, M, M]
-
-    NOTE on the fused alternative: ops/pallas_expm.py holds a bit-exact
-    Pallas version with VMEM-resident Taylor powers.  Measured at M=128,
-    T=200, order 8 + 2 squarings on TPU v5lite it is NEUTRAL (2.8 vs
-    2.4 ms/iter fwd+bwd): XLA already batches these MXU matmuls well and
-    the evaluation is compute-bound at HIGHEST precision, not HBM-bound.
-    It stays available as an opt-in building block, not the default.
     """
     A = weighted_hamiltonians(mats, weights)
     return taylor_expm(A, order, scaling)
@@ -154,9 +148,7 @@ def chain_product_tree(P):
     O(log T) depth of batched matmuls, ~2T matmul flops total, and — unlike
     ``lax.associative_scan`` — its VJP only touches the tree (cotangent on
     the single root), so it is the right primitive when ONLY the final
-    propagator/state is needed.  Measured ~60x faster backward than
-    differentiating an associative scan indexed at [-1] (TPU v5lite,
-    T=1000, M=4).
+    propagator/state is needed.
     """
     while P.shape[0] > 1:
         T = P.shape[0]
@@ -177,16 +169,11 @@ def chain_product_tree(P):
 
 
 def resolve_state_engine(M: int, T: int, gradient_mode: str,
-                         final_only: bool, on_accel: bool) -> str:
-    """The state-transfer auto ladder (measured on TPU v5lite, see the
-    state_transfer_chain docstring): tree (fused, small final-only) ->
-    pscan (matvec-adjoint, M >= 16) -> associative (tiny M with
-    trajectory) -> scan (CPU / fallback)."""
-    from .pallas_tree import tree_chain_supported
-
-    if gradient_mode == "exact" and on_accel:
-        if final_only and tree_chain_supported(M, T):
-            return "tree"
+                         on_gpu: bool) -> str:
+    """The state-transfer auto ladder: pscan (matvec-adjoint, M >= 16) ->
+    associative (small M; final-only losses reduce through the product
+    tree) -> scan (CPU, reference gradients, and the memory fallback)."""
+    if gradient_mode == "exact" and on_gpu:
         if M >= 16 and 8 * T * M * M < (1 << 31):
             return "pscan"
         if 4 * T * M * M * 3 < (1 << 30):
@@ -195,16 +182,11 @@ def resolve_state_engine(M: int, T: int, gradient_mode: str,
 
 
 def resolve_unitary_engine(M: int, T: int, scaling: int,
-                           gradient_mode: str, needs_inter: bool,
-                           on_accel: bool) -> str:
-    """The unitary-mode auto ladder (models/forward.py): tree (fused
-    final-only) -> pscan (rank-V adjoint via squaring expansion, M >= 16)
-    -> associative / scan by memory."""
-    from .pallas_tree import tree_chain_supported
-
-    if gradient_mode == "exact" and on_accel:
-        if not needs_inter and tree_chain_supported(M, T):
-            return "tree"
+                           gradient_mode: str, on_gpu: bool) -> str:
+    """The unitary-mode auto ladder (models/forward.py): pscan (rank-V
+    adjoint via squaring expansion, M >= 16) -> associative / scan by
+    memory."""
+    if gradient_mode == "exact" and on_gpu:
         reps = 1 << scaling
         if M >= 16 and 8 * T * reps * M * M < (1 << 31):
             return "pscan"
@@ -237,17 +219,14 @@ def _pscan_run(mats, weights, psi0, order, reps):
 
 
 def pscan_chain(mats, weights, psi0, order, reps=1):
-    """Batched-propagator state chain — lane-tile padding wrapper.
+    """Batched-propagator state chain — tile padding wrapper.
 
-    At M just under a 128-lane tile (measured at M=120: BASELINE
-    config 4), XLA:TPU inserts a full {2,1,0}->{0,2,1} layout copy after
-    EVERY Taylor-series matmul (~30% of the iteration in the round-5
-    trace).  Zero-padding M up to the tile boundary removes the copies
-    outright: measured 114.9 -> ~136 it/s on config 4 despite 13% more
-    matmul data.  The pad is applied only when the data growth is small
-    ((Mp/M)^2 <= 1.3 — M=120 qualifies, M=400 -> 512 does not); padded
-    generator rows/columns are zero, so the padded block of Q is exactly
-    the identity acting on zero state rows — the math is unchanged, and
+    Zero-pads M up to the next multiple of 128 when the data growth is
+    small ((Mp/M)^2 <= 1.3 — M=120 qualifies, M=400 -> 512 does not).  The
+    rule was sized for a 128-wide matrix tile and is kept as it stands
+    until it is measured on and off on the GPU.  Padded generator
+    rows/columns are zero, so the padded block of Q is exactly the
+    identity acting on zero state rows — the math is unchanged, and
     pad/slice are linear ops autodiff handles around the custom-VJP core
     (``_pscan_chain_core``).
     """
@@ -267,7 +246,7 @@ def _pscan_chain_core(mats, weights, psi0, order, reps=1):
     """Batched-propagator state chain with a matvec-adjoint backward.
 
     Forward (the ``pscan`` engine): Q_t = Taylor_{0..order-1}(A_t / reps)
-    as ONE batched [T, M, M] series on the MXU, then the serial state
+    as ONE batched [T, M, M] series, then the serial state
     sweep applying Q_t ``reps`` times per timestep (``reps = 2**scaling``
     expands the unitary-mode squaring chain into repeated sub-steps —
     exp(A) = Taylor(A/2^s)^(2^s), tensorflow_state.py:31,43-44).
@@ -289,8 +268,7 @@ def _pscan_chain_core(mats, weights, psi0, order, reps=1):
         (two batched matmuls via the coefficient table), then
         wbar = <mats_k, Abar_t>/reps, matsbar = sum_t w_kt Abar_t / reps.
 
-    This removes the 2x-forward M^3 Taylor backward of plain autodiff:
-    measured 32.8 -> 114.9 it/s on BASELINE config 4 (see PERF.md).
+    This removes the 2x-forward M^3 Taylor backward of plain autodiff.
     """
     vecs, _, _ = _pscan_run(mats, weights, psi0, order, reps)
     return vecs
@@ -467,45 +445,22 @@ def state_transfer_chain(
       * ``associative``: form all step propagators with a batched Taylor
         series (same truncation order-1, no scaling — the state-transfer
         convention) and cumulative-product them with
-        ``lax.associative_scan`` — O(log T) depth.  For small dimensions
-        the serial matvec chain is launch-latency-bound on TPU; the
-        associative form is ~2.5x faster per iteration (measured on
-        TPU v5lite, 2-level system, T=1000).  Only for exact gradients.
-      * ``pscan``: batched Taylor step propagators (all MXU work parallel
-        over the time axis) + a serial [M,M]@[M,V] state scan with the
+        ``lax.associative_scan`` — O(log T) depth instead of T serial
+        matvecs.  Only for exact gradients.
+      * ``pscan``: batched Taylor step propagators (parallel over the time
+        axis) + a serial [M,M]@[M,V] state scan with the
         matvec-adjoint custom VJP (``pscan_chain``) — same math as
         ``associative`` with the O(T) cumulative matrix products replaced
         by O(T) mat-VECS and the M^3 Taylor backward replaced by batched
-        power ladders.  Measured on TPU v5lite, T=1000, trajectory cost:
-        3.5x associative at M=120 (BASELINE config 4: 32.8 -> 114.9
-        it/s), 4.7x at M=48, parity at M=16, slower at M=4 (serial
-        latency).  Only for exact gradients.
+        power ladders.  Only for exact gradients.
       * ``scan``: the serial matvec recursion (flops-optimal, required for
         the reference gradient mode whose custom VJP is per-step).
     """
     if engine == "auto":
-        # Engine ladder for exact gradients on accelerators (single
-        # source: resolve_state_engine):
-        #   tree   — fused Pallas kernel, small dims (pi pulse: 23us/iter)
-        #   pscan  — batched Taylor propagators + serial state sweep with
-        #            the matvec-adjoint VJP; wins once per-step matrices
-        #            are real MXU tiles (measured on TPU v5lite, T=1000,
-        #            speed_up cost: M=16 parity, M=32 2.4x, M=48 4.7x,
-        #            M=120 3.5x over associative)
-        #   associative — batched XLA ops; best at tiny M (M=4: 3.5x over
-        #            pscan — the serial matvec latency dominates there)
-        #   scan   — serial matvecs; best on CPU (0.08ms) and for huge dims.
+        from ..routing import on_gpu
+
         engine = resolve_state_engine(
-            mats.shape[-1], weights.shape[-1], gradient_mode, final_only,
-            jax.default_backend() != "cpu")
-
-    if engine == "tree" and gradient_mode == "exact" and final_only:
-        from .pallas_tree import fused_tree_chain
-
-        # state-transfer Taylor convention: powers 0..order-1, no scaling
-        E = fused_tree_chain(mats, weights, order - 1, 0)
-        final = _bmm(E, psi0)
-        return final[None]
+            mats.shape[-1], weights.shape[-1], gradient_mode, on_gpu())
 
     if engine == "associative" and gradient_mode == "exact":
         # Taylor series with the matvec truncation (powers 0..order-1),
@@ -520,13 +475,12 @@ def state_transfer_chain(
 
     if engine == "pscan" and gradient_mode == "exact":
         # batched Taylor (same matvec truncation) + serial state scan,
-        # with the matvec-adjoint custom VJP (see pscan_chain): the MXU
-        # does all the parallel [T,M,M] work, the serial sweeps are
+        # with the matvec-adjoint custom VJP (see pscan_chain): the
+        # parallel [T,M,M] work is batched, the serial sweeps are
         # mat-VECS in both directions, and the backward needs no M^3
-        # Taylor re-differentiation.  The associative form's autodiff
-        # liveness spills to host memory at [1000,120,120] (the S(1)
-        # buffers in the round-5 dim60 trace); this path never exceeds
-        # P + the power ladders.
+        # Taylor re-differentiation.  Its memory never exceeds P + the
+        # power ladders, where the associative form's autodiff keeps every
+        # cumulative product alive.
         vecs = pscan_chain(mats, weights, psi0, order, 1)
         if final_only:
             return vecs[-1][None]
@@ -620,14 +574,6 @@ def evolve_unitary(
     if engine == "associative":
         return chain_associative(P, U0, psi0)
     return chain_scan(P, U0, psi0)
-
-
-def evolve_unitary_tree(mats, weights, U0, order: int, scaling: int):
-    """Final unitary via the fused Pallas tree kernel (final-only path)."""
-    from .pallas_tree import fused_tree_chain
-
-    E = fused_tree_chain(mats, weights, order, scaling)
-    return _bmm(E, U0)
 
 
 def pick_engine(dim_real: int, steps: int) -> str:

@@ -1,1 +1,1 @@
-from . import batch, mesh, pallas_batch, shard
+from . import batch, mesh, shard

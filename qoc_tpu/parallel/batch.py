@@ -1,15 +1,15 @@
-"""Pod-scale batched GRAPE: many seeds / Hamiltonian sweeps per step.
+"""Batched GRAPE: many seeds / Hamiltonian sweeps per step.
 
-The per-chip speed story for GRAPE on TPU is batching: a single 2Nx2N
-matrix exponential underutilizes the 128x128 MXU, so we vmap whole
-optimizations over a seed axis (and optionally a Hamiltonian-parameter
-axis) and shard that axis over a device mesh.  Each seed keeps its own
-Adam state and its own convergence flag (per-seed early-stop masks —
-converged seeds freeze while the batch keeps stepping); aggregate metrics
-are jnp reductions that XLA lowers to psum over ICI when sharded.
+A single 2Nx2N matrix exponential leaves most of an accelerator idle, so
+whole optimizations are batched over a seed axis (and optionally a
+Hamiltonian-parameter axis) and that axis is sharded over a device mesh.
+Each seed keeps its own Adam state and its own convergence flag (per-seed
+early-stop masks — converged seeds freeze while the batch keeps
+stepping); aggregate metrics are jnp reductions that XLA lowers to
+all-reduces across the mesh when sharded.
 
 There is no reference analog (SURVEY.md section 2.7): this layer is the
-new capability the BASELINE.json pod-scale config targets.
+new capability the BASELINE.json multi-seed config targets.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..models.forward import make_forward
 from ..models.system import ControlProblem
 from ..optim.adam import make_adam_optimizer
 from ..optim.convergence import ConvergenceSettings
-from .mesh import BATCH_AXIS, batch_sharding, make_mesh
+from .mesh import batch_sharding
 
 
 class BatchState(NamedTuple):
@@ -51,49 +51,18 @@ def init_seeds(
     )
 
 
-def _make_mega_backend(problem, conv, extra_channel_mats, mesh,
-                       reg_coeffs=None):
-    """(init_state, run_segment) adapter: the fused batched-optimizer
-    kernel behind the BatchState protocol (same fields batched_grape_adam
-    and user code read)."""
-    from .pallas_mega_batch import make_mega_batched_runner
+def resolve_backend(problem: ControlProblem, reg_coeffs: Optional[dict],
+                    gradient_mode: str, sweep_mats: bool,
+                    on_gpu: bool) -> str:
+    """The 'auto' batch backend: the column-batched xla-cols chain on a GPU
+    when the problem supports it (shared generators, exact gradients),
+    else the vmapped generic xla backend."""
+    from .xla_batch import xla_cols_supported
 
-    init_m, run_m, _ = make_mega_batched_runner(
-        problem, conv, extra_channel_mats=extra_channel_mats, mesh=mesh,
-        reg_coeffs=reg_coeffs)
-
-    def init_state(u_bases) -> BatchState:
-        u_bases = jnp.asarray(u_bases)
-        S = u_bases.shape[0]
-        inf = jnp.full((S,), jnp.inf, dtype=jnp.float32)
-        return BatchState(
-            u_base=u_bases,
-            opt_state=init_m(np.asarray(u_bases)),
-            iteration=jnp.asarray(0, dtype=jnp.int32),
-            loss=inf, reg_loss=inf, grad_squared=inf,
-            done=jnp.zeros((S,), dtype=bool),
-        )
-
-    def run_segment(state: BatchState, stop_at, mats_b) -> BatchState:
-        n = int(stop_at) - int(state.iteration)
-        if n <= 0:
-            return state
-        ms = run_m(state.opt_state, n, extra_weights=mats_b)
-        losses = jnp.asarray(ms.losses)
-        S = state.u_base.shape[0]
-        V = ms.u_cols.shape[2] // S  # V replicated columns per seed group
-        return BatchState(
-            u_base=jnp.transpose(
-                jnp.asarray(ms.u_cols)[:, :, ::V], (2, 1, 0)),
-            opt_state=ms,
-            iteration=jnp.asarray(ms.iteration, dtype=jnp.int32),
-            loss=losses,
-            reg_loss=jnp.asarray(ms.reg_losses),
-            grad_squared=jnp.asarray(ms.grad_squared),
-            done=jnp.asarray(ms.done_cols)[0, ::V] > 0.5,
-        )
-
-    return init_state, run_segment
+    if (on_gpu and gradient_mode == "exact" and not sweep_mats
+            and xla_cols_supported(problem, reg_coeffs)):
+        return "xla-cols"
+    return "xla"
 
 
 def make_batched_runner(
@@ -104,7 +73,6 @@ def make_batched_runner(
     engine: str = "auto",
     remat: bool = False,
     sweep_mats: bool = False,
-    mesh=None,
     backend: str = "auto",
     extra_channel_mats=None,
 ):
@@ -115,81 +83,40 @@ def make_batched_runner(
     seeds share the problem's generators.
 
     ``backend``:
-      * 'mega'   — the fused batched-OPTIMIZER kernel
-        (parallel/pallas_mega_batch.py): whole Adam segments per launch
-        with in-kernel per-seed convergence freezing AND in-kernel costs
-        (pulse-shape + bandpass + forbidden); ~5x 'pallas'.
-      * 'pallas' — fused chain kernel per loss evaluation
-        (parallel/pallas_batch.py), XLA backward + optax update.
-      * 'xla-cols' — column-batched XLA chain for LARGE dims (any V,
-        all 7 costs incl. in-carry forbidden + speed_up;
+      * 'xla-cols' — column-batched XLA chain (any V, all 7 costs incl.
+        in-carry forbidden + speed_up, constant extra channels;
         parallel/xla_batch.py).
       * 'xla'    — vmapped generic forward (always available; the only
         backend for per-seed mats sweeps).
-      * 'auto'   — mega when supported on an accelerator, else pallas,
-        else xla-cols, else xla.
+      * 'auto'   — xla-cols on a GPU when the problem supports it, else
+        xla.
 
-    ``extra_channel_mats`` ([E, 2N, 2N] real iso, mega/pallas backends):
+    ``extra_channel_mats`` ([E, 2N, 2N] real iso, xla-cols backend):
     fixed operator channels whose constant per-seed weights ride the
     runner's ``mats_b`` operand as ``extra_weights [S, E]`` — the
-    Hamiltonian-sweep mechanism for the fused kernels.
+    linear Hamiltonian-sweep mechanism.
     """
-    from ..routing import announce, fused_fallback_reasons
+    from ..routing import announce, check_backend, on_gpu
+    from .xla_batch import make_xla_batched_loss
 
+    check_backend(backend)
     optimizer = make_adam_optimizer(conv)
 
     _DESCR = {
-        "mega": "mega (fused batched-optimizer Pallas kernel)",
-        "pallas": "pallas (fused chain kernel + XLA backward)",
         "xla-cols": "xla-cols (column-batched XLA chain)",
         "xla": "xla (vmapped generic forward)",
     }
     if backend == "auto":
-        from .pallas_batch import pallas_batch_supported
-        from .pallas_mega_batch import batched_mega_supported
-
-        from .xla_batch import xla_cols_supported
-
-        on_accel = jax.default_backend() not in ("cpu",)
-        if (on_accel and gradient_mode == "exact" and not sweep_mats
-                and batched_mega_supported(problem, reg_coeffs)):
-            backend = "mega"
-        elif (on_accel and gradient_mode == "exact" and not sweep_mats
-                and pallas_batch_supported(problem, reg_coeffs)):
-            backend = "pallas"
-        elif (on_accel and gradient_mode == "exact" and not sweep_mats
-                and xla_cols_supported(problem, reg_coeffs)):
-            # large dims: column-batched XLA chain (shared-generator MXU
-            # matmuls; ~4.6x the vmapped path at dim 200)
-            backend = "xla-cols"
-        else:
-            backend = "xla"
-        reasons = None
-        if backend != "mega":
-            reasons = fused_fallback_reasons(
-                problem, reg_coeffs, gradient_mode=gradient_mode,
-                sweep_mats=sweep_mats, on_accel=on_accel)
-        announce("batch backend", _DESCR[backend], reasons)
+        backend = resolve_backend(problem, reg_coeffs, gradient_mode,
+                                  sweep_mats, on_gpu())
+        announce("batch backend", _DESCR[backend])
     else:
-        announce("batch backend", _DESCR.get(backend, backend) + " (forced)")
+        announce("batch backend", _DESCR[backend] + " (forced)")
 
-    if backend == "mega":
-        return _make_mega_backend(problem, conv, extra_channel_mats, mesh,
-                                  reg_coeffs=reg_coeffs)
-
-    if backend in ("pallas", "xla-cols"):
-        if backend == "pallas":
-            from .pallas_batch import make_pallas_batched_loss
-
-            batched_loss = make_pallas_batched_loss(
-                problem, reg_coeffs, extra_channel_mats=extra_channel_mats
-            )
-        else:
-            from .xla_batch import make_xla_batched_loss
-
-            batched_loss = make_xla_batched_loss(
-                problem, reg_coeffs, extra_channel_mats=extra_channel_mats
-            )
+    if backend == "xla-cols":
+        batched_loss = make_xla_batched_loss(
+            problem, reg_coeffs, extra_channel_mats=extra_channel_mats
+        )
 
         def _total(u_bases, extra_w):
             reg_losses, fid_losses = batched_loss(u_bases, extra_w)
@@ -202,21 +129,25 @@ def make_batched_runner(
             g2 = 0.5 * jnp.sum(jnp.square(grads), axis=(1, 2))
             return fid_losses, reg_losses, g2, grads
 
-    # Under vmap the per-seed forward must use plain XLA ops (the fused
-    # Pallas engines pack their own batch axis); serial scan is the right
-    # vmapped engine — batched matvecs, minimal memory traffic.
-    xla_engine = "scan" if engine == "auto" else engine
-    _, loss_fn = make_forward(
-        problem, reg_coeffs=reg_coeffs, gradient_mode=gradient_mode,
-        engine=xla_engine, remat=remat, lean=True,
-    )
-
-    def seed_metrics(u_base, mats_in):
-        (reg_loss, out), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-            u_base, mats_in
+    else:
+        # Under vmap the serial scan is the right per-seed engine — batched
+        # matvecs, minimal memory traffic.
+        xla_engine = "scan" if engine == "auto" else engine
+        _, loss_fn = make_forward(
+            problem, reg_coeffs=reg_coeffs, gradient_mode=gradient_mode,
+            engine=xla_engine, remat=remat, lean=True,
         )
-        g2 = 0.5 * jnp.sum(jnp.square(grads))
-        return out.loss, reg_loss, g2, grads
+
+        def seed_metrics(u_base, mats_in):
+            (reg_loss, out), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+                u_base, mats_in
+            )
+            g2 = 0.5 * jnp.sum(jnp.square(grads))
+            return out.loss, reg_loss, g2, grads
+
+        batch_metrics = jax.vmap(
+            seed_metrics, in_axes=(0, 0 if sweep_mats else None)
+        )
 
     def seed_update(u_base, opt_state, grads, done):
         # ``done`` is a per-seed scalar bool (vmapped), so jnp.where
@@ -229,10 +160,6 @@ def make_batched_runner(
         )
         return u, opt
 
-    if backend not in ("pallas", "xla-cols"):
-        batch_metrics = jax.vmap(
-            seed_metrics, in_axes=(0, 0 if sweep_mats else None)
-        )
     v_update = jax.vmap(seed_update, in_axes=(0, 0, 0, 0))
 
     def init_state(u_bases: jnp.ndarray) -> BatchState:
@@ -273,7 +200,7 @@ def make_batched_runner(
 
     # Sharding is carried by the operands (device_put on the seed axis in
     # batched_grape_adam); jit propagates it through the while_loop, and XLA
-    # inserts the ICI collectives for the any()/all() reductions.
+    # inserts the collectives for the any()/all() reductions.
     run_segment = jax.jit(_run)
 
     return init_state, run_segment
@@ -297,14 +224,14 @@ def batched_grape_adam(
 
     Returns a dict with per-seed losses, pulses, iteration counts, and the
     best seed's physical pulse amplitudes.  With ``mesh`` given, the seed
-    axis is sharded over the mesh devices (data-parallel over ICI/DCN).
+    axis is sharded over the mesh devices (data-parallel).
 
     Hamiltonian sweeps, two mechanisms:
       * ``mats_batch`` ([S, K+1, 2N, 2N]): fully general per-seed
         generators, XLA backend;
       * ``extra_channels=(extra_mats [E, 2N, 2N], extra_weights [S, E])``:
         swept terms expressed as fixed operator channels with constant
-        per-seed weights — rides the fused Pallas kernel.
+        per-seed weights — rides the column-batched xla-cols backend.
     """
     from ..models.costs import validate_reg_coeffs
 
@@ -315,29 +242,22 @@ def batched_grape_adam(
         raise ValueError("pass either mats_batch or extra_channels, not both")
     extra_mats = extra_w = None
     if extra_channels is not None:
-        # extra channels ride the fused kernels and the column-batched XLA
-        # path (the generic vmapped backend has no constant-channel
-        # operand) — force one of those
-        extra_mats, extra_w = extra_channels
-        if backend == "auto":
-            from .pallas_batch import pallas_batch_supported
-            from .pallas_mega_batch import batched_mega_supported
-            from .xla_batch import xla_cols_supported
+        # extra channels ride only the column-batched XLA path (the
+        # generic vmapped backend has no constant-channel operand)
+        from ..routing import check_backend
+        from .xla_batch import xla_cols_supported
 
-            if batched_mega_supported(problem, reg_coeffs):
-                backend = "mega"
-            elif pallas_batch_supported(problem, reg_coeffs):
-                backend = "pallas"
-            elif xla_cols_supported(problem, reg_coeffs):
-                # large dims (BASELINE config 5): column-batched XLA chain
-                backend = "xla-cols"
-            else:
+        extra_mats, extra_w = extra_channels
+        if check_backend(backend) == "auto":
+            if not xla_cols_supported(problem, reg_coeffs):
                 raise ValueError(
-                    "extra_channels need a fused or column-batched "
-                    "backend; this problem/cost combination supports none")
+                    "extra_channels need the column-batched xla-cols "
+                    "backend; this problem/cost combination does not "
+                    "support it")
+            backend = "xla-cols"
     init_state, run_segment = make_batched_runner(
         problem, conv, reg_coeffs=reg_coeffs, gradient_mode=gradient_mode,
-        engine=engine, sweep_mats=sweep, mesh=mesh, backend=backend,
+        engine=engine, sweep_mats=sweep, backend=backend,
         extra_channel_mats=extra_mats,
     )
     key = jax.random.PRNGKey(seed)

@@ -1,11 +1,12 @@
-"""Device-mesh utilities for pod-scale batched optimization.
+"""Device-mesh utilities for multi-device batched optimization.
 
 The reference has no distribution layer at all (SURVEY.md section 2.7) —
 this is the genuinely new first-class component.  Scaling comes from
-batching optimization seeds / Hamiltonian sweeps over a
-``jax.sharding.Mesh``: intra-slice reductions ride ICI via XLA collectives,
-multi-host runs initialize with ``jax.distributed`` and shard the seed axis
-across hosts over DCN.
+batching optimization seeds / Hamiltonian sweeps over a 1-D
+``jax.sharding.Mesh`` on the seed axis: seeds are independent, so the
+mesh follows the algorithm alone, and the only collectives are the
+all-reduces of aggregate metrics.  Runs over several hosts initialize
+with ``jax.distributed`` and shard the same seed axis across them.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def replicated(mesh: Mesh) -> NamedSharding:
 def init_distributed(**kwargs) -> None:
     """Multi-host entry: call once per process before touching devices.
 
-    Thin wrapper over ``jax.distributed.initialize`` (coordinator address,
-    process id/count come from the environment on TPU pods).
+    Thin wrapper over ``jax.distributed.initialize``: pass the
+    coordinator address (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly where no cluster environment provides them.
     """
     jax.distributed.initialize(**kwargs)

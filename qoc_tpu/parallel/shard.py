@@ -5,12 +5,12 @@ partitioning.  This module is the explicit counterpart: each device owns a
 local shard of the seed axis, the per-seed Adam step runs on local data
 only (zero cross-device traffic in the hot loop — seeds are independent),
 and the *aggregate* convergence statistics (global best loss, number of
-converged seeds) are computed with ``lax.psum`` over the ICI mesh axis.
-On a multi-host pod, initialize ``jax.distributed`` first and build the
-mesh over all devices; the same code spans hosts over DCN.
+converged seeds) are computed with ``lax.psum``/``lax.pmin`` over the 1-D
+seed mesh axis.  Over several hosts, initialize ``jax.distributed`` first
+and build the mesh over all devices; the same code spans them.
 
-This is the layer SURVEY.md section 2.7 calls for ("psum over ICI for
-gradient/fidelity reductions") — there is no reference analog to cite.
+This is the layer SURVEY.md section 2.7 calls for (collective reductions
+of gradient/fidelity statistics) — there is no reference analog to cite.
 """
 
 from __future__ import annotations

@@ -2,41 +2,30 @@
 
 The generic batched path (vmap of the per-seed forward) materializes a
 per-seed step generator ``A_t [S, M, M]`` at every timestep — at dim 200
-that is 41 MB of HBM traffic per Taylor application, and the whole
+that is 41 MB of memory traffic per Taylor application, and the whole
 iteration is bandwidth-bound.  This module batches seeds on the COLUMN
-axis instead (the pallas_chain layout, in pure XLA): the state block is
-``[M, C]`` (C = seeds x V concerned vectors), and each Taylor term is ONE
-``[M, K'M] @ [K'M, C]`` MXU matmul — the per-seed weights are column
-scalings, so they commute into the operand (``sum_k w_k (M_k @ pn) =
-[M_0|..|M_K'] @ stack_k(pn * w_k)``) and the K'-channel mix happens
-inside the MXU contraction instead of as K' separate dots + adds.  No
-per-seed matrices ever exist.  Measured at dim 200 (qubit x 100-level
-cavity, 200 steps, 64 seeds, TPU v5lite): 4.6x the vmapped path as
-separate dots, a further 11% with the stacked contraction (fwd+bwd 42.0
--> 37.9 ms; a seed-major ``[S, K'M] @ [K'M, M]`` transpose variant
-measured slightly worse, 38.3 ms).
+axis instead: the state block is ``[M, C]`` (C = seeds x V concerned
+vectors), and each Taylor term is ONE ``[M, K'M] @ [K'M, C]`` matmul —
+the per-seed weights are column scalings, so they commute into the
+operand (``sum_k w_k (M_k @ pn) = [M_0|..|M_K'] @ stack_k(pn * w_k)``)
+and the K'-channel mix happens inside the matmul contraction instead of
+as K' separate dots + adds.  No per-seed matrices ever exist.
 
-The column axis is zero-padded to a multiple of 128 ONLY when C > 128:
-above one lane tile the pad fraction is small and full lane tiles remove
-the stacked operand's data-formatting share; at C <= 128 the pad would
-up-to-double the real work the formatting ops do on [K'M, Cp] (measured:
-padding C=64 -> 128 cost 19% end-to-end at dim 200, BENCH_r04 vs r03 —
-the round-4 unconditional pad was a regression and is now conditional).
-Padded columns carry zero state and zero weights and are sliced off
-before the fidelity/penalty reductions.
+The column axis is zero-padded to a multiple of 128 ONLY when C > 128.
+The rule was sized for a 128-wide matrix tile; it stays as it is until it
+is measured on and off on the GPU.  Padded columns carry zero state and
+zero weights and are sliced off before the fidelity/penalty reductions.
 
 Scope: any number of concerned vectors (coherent inner_product_2D group
-fidelity; the V <= 8 limit is a Pallas lane-group-sum constraint and
-does not apply here), state transfer or unitary mode (any taylor_scaling —
+fidelity), state transfer or unitary mode (any taylor_scaling —
 squarings run as repeated pre-scaled Taylor applications to the state
 block, so no per-seed matrices exist), pulse-only penalties PLUS the
 trajectory penalties: forbidden-state occupation (static projection rows
 inside the scan carry — dressed rotation folded in host-side,
-regularization_functions.py:71-85 via ops/pallas_mega.forbidden_static)
-AND speed_up (per-step coherent target overlap accumulated in the scan
-carry, regularization_functions.py:88-95); constant-weight extra sweep
-channels.  Used by make_batched_runner as the large-dim backend where
-the fused kernels don't fit in VMEM.
+regularization_functions.py:71-85 via ``forbidden_static``) AND speed_up
+(per-step coherent target overlap accumulated in the scan carry,
+regularization_functions.py:88-95); constant-weight extra sweep
+channels.  Used by make_batched_runner as the GPU seed-batch backend.
 """
 
 from __future__ import annotations
@@ -57,13 +46,56 @@ _FORB_KEYS = ("forbidden_coeff_list", "forbidden",
               "states_forbidden_list", "forbid_dressed")
 
 
+def _forbidden_pairs(reg_coeffs):
+    """[(coeff, level), ...] from either spelling, or []."""
+    rc = reg_coeffs or {}
+    coeffs = rc.get("forbidden_coeff_list", rc.get("forbidden"))
+    if coeffs is None:
+        return []
+    return list(zip(coeffs, rc["states_forbidden_list"]))
+
+
+def forbidden_static(problem, reg_coeffs):
+    """Host-side statics for the forbidden-state penalties.
+
+    Returns (forb, c0): ``forb`` is a tuple of (alpha, rs, rns) with the
+    (optional) dressed rotation folded into per-level projection rows
+    rs[j] = R[j, s], rns[j] = R[j, N+s] (one-hot when undressed,
+    regularization_functions.py:73-80), and ``c0`` the constant t=0 (psi0)
+    contribution — inter_vecs[0] is the RAW initial vectors in both modes.
+    """
+    rc = reg_coeffs or {}
+    pairs = _forbidden_pairs(rc)
+    Nc = problem.state_num
+    R = (
+        np.asarray(problem.v_sorted_iso, dtype=np.float64)
+        if (problem.v_sorted_iso is not None
+            and rc.get("forbid_dressed", False))
+        else None
+    )
+    forb = []
+    c0 = 0.0
+    iv0 = np.asarray(problem.initial_vectors, dtype=np.float64)   # [2N, V]
+    rot0 = iv0 if R is None else R.T @ iv0
+    for coeff, s in pairs:
+        alpha = float(coeff) / problem.steps
+        if R is None:
+            rs = tuple(1.0 if j == s else 0.0 for j in range(2 * Nc))
+            rns = tuple(1.0 if j == Nc + s else 0.0 for j in range(2 * Nc))
+        else:
+            rs = tuple(float(x) for x in R[:, s])
+            rns = tuple(float(x) for x in R[:, Nc + s])
+        forb.append((alpha, rs, rns))
+        pop0 = rot0[s] ** 2 + rot0[Nc + s] ** 2
+        c0 += alpha * 0.5 * float(np.sum(pop0 ** 2))
+    return tuple(forb), c0
+
+
 def xla_cols_supported(problem: ControlProblem,
                        reg_coeffs: Optional[dict]) -> bool:
     rc = reg_coeffs or {}
-    # any V: the per-seed group reductions here are plain XLA reshapes —
-    # the V <= 8 limit belongs to the Pallas kernels' in-kernel lane
-    # group-sums only (gate lifted round 5; V=12 parity-tested vs the
-    # vmapped forward in tests/test_xla_batch.py)
+    # any V: the per-seed group reductions here are plain XLA reshapes
+    # (V=12 parity-tested vs the vmapped forward in tests/test_xla_batch.py)
     trajectory_keys = ("forbidden_coeff_list", "forbidden", "speed_up")
     if any(k in rc for k in trajectory_keys) and not problem.use_inter_vecs:
         # match costs.py's loud requirement: trajectory penalties need
@@ -83,10 +115,8 @@ def make_xla_batched_loss(
     ``extra_channel_mats`` ([E, 2N, 2N] real iso) adds fixed operator
     channels with constant per-seed weights ``extra_weights [S, E]``.
     ``remat`` checkpoints each scan step (recompute-in-backward — the
-    trajectory at [T, M, C] would otherwise dominate HBM for large M).
+    trajectory at [T, M, C] would otherwise dominate device memory for large M).
     """
-    from ..ops.pallas_mega import forbidden_static
-
     p = problem
     rc = reg_coeffs or {}
     mats_list = [jnp.asarray(p.mats)]
@@ -133,7 +163,7 @@ def make_xla_batched_loss(
     pulse_rc = {k: v for k, v in rc.items()
                 if k not in _FORB_KEYS and k != "speed_up"}
     # matvec truncation (powers 0..order-1) for state transfer; unitary
-    # mode keeps powers 0..taylor_terms (pallas_batch convention).  With
+    # mode keeps powers 0..taylor_terms (the ops/expm.py convention).  With
     # taylor_scaling s > 0, exp(A) = Taylor(A/2^s)^(2^s)
     # (tensorflow_state.py:31,43-44): on the column layout the step is
     # 2^s repeated Taylor applications of the pre-scaled generator to the
@@ -147,10 +177,9 @@ def make_xla_batched_loss(
                      extra_weights: Optional[jnp.ndarray] = None):
         S = u_bases.shape[0]
         C = S * V
-        # pad the column axis to full 128-lane tiles ONLY above one tile
+        # pad the column axis to a multiple of 128 ONLY above 128 columns
         # (zero state + zero weights; sliced off before the reductions) —
-        # at C <= 128 the pad up-to-doubles the formatting work and was a
-        # measured 19% regression at C=64 (module docstring)
+        # at C <= 128 the pad would up-to-double the work (module docstring)
         Cp = C + ((-C) % 128 if C > 128 else 0)
         ops_weight = jnp.sin(u_bases)                          # [S, Kc, T]
         amps = max_amp[None, :, None] * ops_weight
@@ -223,8 +252,10 @@ def make_xla_batched_loss(
         a = final[:N, :].reshape(N, S, V)
         b = final[N:, :].reshape(N, S, V)
         c, d = tgt[:N, :], tgt[N:, :]
-        re = jnp.einsum("nsv,nv->s", a, c) + jnp.einsum("nsv,nv->s", b, d)
-        im = jnp.einsum("nsv,nv->s", b, c) - jnp.einsum("nsv,nv->s", a, d)
+        re = (jnp.einsum("nsv,nv->s", a, c, precision=HI)
+              + jnp.einsum("nsv,nv->s", b, d, precision=HI))
+        im = (jnp.einsum("nsv,nv->s", b, c, precision=HI)
+              - jnp.einsum("nsv,nv->s", a, d, precision=HI))
         fid_losses = 1.0 - (re * re + im * im) * (1.0 / (V * V))
 
         reg_losses = fid_losses
@@ -258,13 +289,14 @@ def make_xla_cols_sharded_runner(
     extra_channel_mats: Optional[np.ndarray] = None,
 ):
     """shard_map'd fixed-count Adam segments on the column-batched loss —
-    the pod-scale execution path for LARGE-dim sweeps (BASELINE config 5).
+    the multi-device execution path for LARGE-dim sweeps (BASELINE
+    config 5).
 
     Every device runs ``n`` complete Adam iterations on its LOCAL seed
     shard with ZERO collectives: seeds are independent, all state is
     seed-sharded, and (unlike the while_loop driver in batch.py, whose
     cross-seed ``any(~done)`` adds one scalar all-reduce per iteration)
-    the fixed-count segment never communicates.  Multi-host pods work the
+    the fixed-count segment never communicates.  Several hosts work the
     same way after ``jax.distributed.initialize`` — each host launches
     its own shard.
 

@@ -1,12 +1,13 @@
-"""Engine/backend routing announcements.
+"""Platform query, engine names and routing announcements.
 
 The reference prints its device placement and Taylor-term decisions
-(main_grape/grape.py:53, core/system_parameters.py:233-238).  The far
-more consequential decision HERE is which compute engine a run lands on
-— the fused Pallas kernels, the column-batched XLA chain, and the
-vmapped generic path differ by up to 4.6x — so every run/batch prints
-ONE line naming the choice and, when a faster path was rejected, the
-reason (V > 8, trajectory costs without inter_vecs, VMEM budget, ...).
+(main_grape/grape.py:53, core/system_parameters.py:233-238).  The more
+consequential decision HERE is which compute engine a run lands on, so
+every run/batch prints ONE line naming the choice.
+
+``on_gpu`` is the one place the program asks which platform it runs on;
+the engine ladders (ops/propagation.py) and the batch router
+(parallel/batch.py) take its answer.
 
 Set ``QOC_TPU_QUIET=1`` to silence the routing lines (tests that parse
 stdout, embedding in notebooks, ...).
@@ -15,92 +16,59 @@ stdout, embedding in notebooks, ...).
 from __future__ import annotations
 
 import os
-from typing import Optional
+
+ENGINES = ("auto", "pscan", "associative", "scan")
+BACKENDS = ("auto", "xla-cols", "xla")
 
 
-def announce(kind: str, choice: str, reasons=None) -> str:
+def on_gpu() -> bool:
+    """True when JAX's default backend is an NVIDIA GPU.  Every other
+    platform takes the CPU choices (serial scan engines, vmapped batch)."""
+    import jax
+
+    return jax.default_backend() == "gpu"
+
+
+def check_engine(engine: str) -> str:
+    if engine not in ENGINES:
+        raise ValueError(
+            f"engine {engine!r} does not exist; the engines are "
+            + ", ".join(ENGINES))
+    return engine
+
+
+def check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"batch backend {backend!r} does not exist; the backends are "
+            + ", ".join(BACKENDS))
+    return backend
+
+
+def announce(kind: str, choice: str) -> str:
     """Print and return the one-line routing decision."""
     line = f"[qoc-tpu] {kind}: {choice}"
-    if reasons:
-        line += " (fallback: " + "; ".join(reasons) + ")"
     if os.environ.get("QOC_TPU_QUIET", "") != "1":
         print(line)
     return line
 
 
-def fused_fallback_reasons(
-    problem,
-    reg_coeffs: Optional[dict],
-    gradient_mode: str = "exact",
-    sweep_mats: bool = False,
-    on_accel: bool = True,
-) -> list:
-    """Why the fused Pallas kernels were rejected for this problem.
-
-    Mirrors the gates in ops/pallas_mega.mega_supported,
-    parallel/pallas_mega_batch.batched_mega_supported,
-    parallel/pallas_batch.pallas_batch_supported and
-    parallel/xla_batch.xla_cols_supported, phrased for the user.
-    """
-    from .ops.pallas_tree import tree_chain_supported
-
-    rc = reg_coeffs or {}
-    reasons = []
-    if not on_accel:
-        reasons.append("cpu backend (fused kernels need an accelerator)")
-    if gradient_mode != "exact":
-        reasons.append(
-            f"gradient_mode={gradient_mode!r} (fused kernels are exact-grad)")
-    if sweep_mats:
-        reasons.append("per-seed generator sweep (mats_batch)")
-    V = problem.initial_vectors.shape[1]
-    traj = [k for k in ("forbidden_coeff_list", "forbidden", "speed_up")
-            if k in rc]
-    if V > 16 or (V > 8 and traj):
-        # mega takes V <= 16 (V <= 8 with trajectory costs); the Pallas
-        # batch kernels take V <= 8; xla-cols takes any V
-        reasons.append(f"V={V} concerned vectors exceed the fused "
-                       "kernels' lane group-sum limit")
-    if traj and not problem.use_inter_vecs:
-        reasons.append("trajectory costs (%s) with use_inter_vecs=False"
-                       % ", ".join(traj))
-    M = 2 * problem.state_num
-    if not tree_chain_supported(M, problem.steps):
-        reasons.append(
-            f"dim {M} x {problem.steps} steps exceeds the fused kernels' "
-            "VMEM tree budget")
-    if not reasons:
-        reasons.append("unsupported cost combination for the fused kernels")
-    return reasons
-
-
-def resolve_single_engine(problem, reg_coeffs, gradient_mode: str,
-                          engine: str, lean: bool = True) -> str:
-    """The concrete engine name the generic (non-mega) Grape forward
-    resolves to — delegates to the same ladder functions
-    (ops/propagation.py resolve_*_engine) models/forward.py uses, so the
-    announcement cannot drift from what actually runs."""
-    import jax
-
-    from .models.forward import INTER_VEC_COSTS
+def resolve_single_engine(problem, gradient_mode: str, engine: str) -> str:
+    """The concrete engine name the Grape forward resolves to — delegates
+    to the same ladder functions (ops/propagation.py resolve_*_engine)
+    models/forward.py uses, so the announcement cannot drift from what
+    actually runs."""
     from .ops.propagation import (resolve_state_engine,
                                   resolve_unitary_engine)
 
-    p = problem
-    M = 2 * p.state_num
-    if lean:
-        needs_inter = p.use_inter_vecs and any(
-            k in (reg_coeffs or {}) for k in INTER_VEC_COSTS)
-    else:
-        needs_inter = p.use_inter_vecs
-    on_accel = jax.default_backend() != "cpu"
+    check_engine(engine)
     if engine != "auto":
         return engine
+    p = problem
+    M = 2 * p.state_num
     if p.state_transfer:
-        return resolve_state_engine(M, p.steps, gradient_mode,
-                                    not needs_inter, on_accel)
+        return resolve_state_engine(M, p.steps, gradient_mode, on_gpu())
     if gradient_mode != "exact":
-        return resolve_unitary_engine(M, p.steps, 0, "reference",
-                                      needs_inter, False)
+        return resolve_unitary_engine(M, p.steps, 0, "reference", False)
     return resolve_unitary_engine(M, p.steps, p.taylor_scaling,
-                                  gradient_mode, needs_inter, on_accel)
+                                  gradient_mode, on_gpu())

@@ -19,7 +19,7 @@ try:
     import h5py
 
     HAVE_H5PY = True
-except Exception:  # pragma: no cover - h5py is baked into this image
+except ImportError:  # optional extra: pip install qoc-tpu[h5]
     HAVE_H5PY = False
 
 
@@ -27,6 +27,10 @@ class H5File(h5py.File if HAVE_H5PY else object):
     """h5py.File with Schuster-lab add/append semantics."""
 
     def __init__(self, *args, **kwargs):
+        if not HAVE_H5PY:
+            raise ImportError(
+                "run files need h5py, which is not installed: install it "
+                "(pip install h5py) or pass save=False")
         h5py.File.__init__(self, *args, **kwargs)
         self.flush()
 
@@ -192,7 +196,7 @@ def save_run_inputs(
 ):
     """Dump all run inputs up-front (grape.py:55-87 schema).
 
-    ``use_gpu``/``sparse_H/U/K`` have no effect on TPU but are part of the
+    ``use_gpu``/``sparse_H/U/K`` have no effect here but are part of the
     reference's input-dump field list (grape.py:63-66) — schema-complete
     readers expect them.
     """

@@ -198,3 +198,87 @@ def qutip_verification(datafile: str, atol: float):
     print("all close: " + str(result["all_close"]))
     print("================================================")
     return result
+
+
+def exact_unitary_grad_f64(problem, u_base):
+    """EXACT float64 gradient through the full unitary-mode forward —
+    Taylor series AND the scaling-squaring branch (the one code path
+    unique to scaling>0 configs like CNOT).  Hand-derived adjoints:
+    squarings E_{j+1} = E_j E_j backprop as
+    Ebar_j = Ebar_{j+1} E_j^T + E_j^T Ebar_{j+1}; the Taylor polynomial
+    backprops via Xbar = sum_n (1/n!) sum_{a+b=n-1} (X^T)^a Ebar (X^T)^b.
+    This is the float64 oracle for every exact-gradient engine (pscan
+    matvec adjoint, associative and XLA scan).  Returns (loss, dL/du)."""
+    p = problem
+    mats = np.asarray(p.mats, dtype=np.float64)
+    U0 = np.asarray(p.U0_iso, np.float64)
+    psi0 = np.asarray(p.initial_vectors, np.float64)
+    tgt = np.asarray(p.target_vectors, np.float64)
+    maxA = np.asarray(p.ops_max_amp, np.float64)
+    order, scaling = p.taylor_terms, p.taylor_scaling
+    N = p.state_num
+    V = psi0.shape[1]
+    T = p.steps
+    M = mats.shape[-1]
+    w = np.concatenate(
+        [np.ones((1, T)), maxA[:, None] * np.sin(u_base)], axis=0)
+
+    fact = [1.0]
+    for n in range(1, order + 1):
+        fact.append(fact[-1] * n)
+
+    def fwd_one(A):
+        X = A / (2.0 ** scaling)
+        Xp = [np.eye(M)]
+        for n in range(1, order + 1):
+            Xp.append(X @ Xp[-1])
+        E = sum(Xp[n] / fact[n] for n in range(order + 1))
+        Es = [E]
+        for _ in range(scaling):
+            Es.append(Es[-1] @ Es[-1])
+        return Xp, Es
+
+    P, saved = [], []
+    for t in range(T):
+        A = np.einsum("k,kij->ij", w[:, t], mats)
+        Xp, Es = fwd_one(A)
+        saved.append((Xp, Es))
+        P.append(Es[-1])
+
+    R = [U0]
+    for t in range(T):
+        R.append(P[t] @ R[t])
+    final = R[-1]
+    L = [np.eye(M)]
+    for t in range(T - 1, -1, -1):
+        L.insert(0, L[0] @ P[t])
+    lefts = L[1:]
+
+    fv = final @ psi0
+    a, b = fv[:N], fv[N:]
+    c, d = tgt[:N], tgt[N:]
+    Rr = np.sum(a * c + b * d)
+    Ii = np.sum(b * c - a * d)
+    loss = 1.0 - (Rr * Rr + Ii * Ii) / (V * V)
+    Gv = np.zeros_like(fv)
+    Gv[:N] = -(2 * Rr * c - 2 * Ii * d) / (V * V)
+    Gv[N:] = -(2 * Rr * d + 2 * Ii * c) / (V * V)
+    Fbar = Gv @ psi0.T
+
+    wbar = np.zeros_like(w)
+    for t in range(T):
+        Pbar = lefts[t].T @ Fbar @ R[t].T
+        Xp, Es = saved[t]
+        Ebar = Pbar
+        for j in range(scaling - 1, -1, -1):
+            E = Es[j]
+            Ebar = Ebar @ E.T + E.T @ Ebar
+        Xbar = np.zeros((M, M))
+        for n in range(1, order + 1):
+            for a_ in range(n):
+                Xbar += (Xp[a_].T @ Ebar @ Xp[n - 1 - a_].T) / fact[n]
+        Abar = Xbar / (2.0 ** scaling)
+        for k in range(1, len(mats)):
+            wbar[k, t] = np.sum(Abar * mats[k])
+    ubar = wbar[1:] * maxA[:, None] * np.cos(u_base)
+    return loss, ubar

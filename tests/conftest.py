@@ -1,6 +1,6 @@
 """Test configuration: force an 8-device virtual CPU platform.
 
-Multi-chip sharding is validated without TPU hardware via
+Multi-device sharding is validated without accelerator hardware via
 ``--xla_force_host_platform_device_count`` (SURVEY.md section 4d); compute
 tests run on CPU for fast compiles and float64 oracle comparisons.
 """

@@ -218,7 +218,7 @@ def test_pi_pulse_bfgs():
 
 
 def test_bandpass_and_speedup_e2e():
-    """bandpass (native TPU/CPU FFT) + speed_up costs through a full run."""
+    """bandpass (native FFT on every backend) + speed_up costs through a full run."""
     res = q.Grape(
         H0_QUBIT, [q.SIGMA_X, q.SIGMA_Y], ["x", "y"],
         [np.array([0, 1], dtype=complex)], 10.0, 100,

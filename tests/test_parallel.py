@@ -10,7 +10,7 @@ import qoc_tpu as q
 from qoc_tpu.models.system import ControlProblem
 from qoc_tpu.ops.isomorphism import c_to_r_mat
 from qoc_tpu.parallel.batch import batched_grape_adam, init_seeds
-from qoc_tpu.parallel.mesh import batch_sharding, make_mesh
+from qoc_tpu.parallel.mesh import make_mesh
 
 
 def pi_problem(steps=60):
@@ -77,61 +77,6 @@ def test_hamiltonian_sweep():
     assert np.all(out["losses"] < 1e-2)
 
 
-def test_pallas_backend_matches_xla():
-    """Pallas-kernel batched loss == vmapped XLA loss (interpret mode on CPU)."""
-    from qoc_tpu.parallel.pallas_batch import make_pallas_batched_loss
-    from qoc_tpu.models.forward import make_forward
-
-    p = pi_problem(steps=30)
-    S = 4
-    u = np.asarray(init_seeds(p, S, jax.random.PRNGKey(3)))
-    reg = {"amplitude": 0.1, "dwdt": 0.01}
-    bl = make_pallas_batched_loss(p, reg)
-    reg_losses, fid_losses = bl(jnp.asarray(u))
-    _, loss_fn = make_forward(p, reg_coeffs=reg, lean=True, engine="scan")
-    for s in range(S):
-        rl, out = loss_fn(jnp.asarray(u[s]))
-        assert np.isclose(float(reg_losses[s]), float(rl), atol=1e-5)
-        assert np.isclose(float(fid_losses[s]), float(out.loss), atol=1e-5)
-    # gradients agree too
-    g_p = jax.grad(lambda u: jnp.sum(bl(u)[0]))(jnp.asarray(u))
-    g_x = np.stack([
-        np.asarray(jax.grad(lambda x: loss_fn(x)[0])(jnp.asarray(u[s])))
-        for s in range(S)
-    ])
-    assert np.allclose(np.asarray(g_p), g_x, atol=1e-4)
-
-
-def test_pallas_backend_batched_run():
-    """Full batched Adam through the pallas backend (interpret mode)."""
-    out = batched_grape_adam(
-        pi_problem(steps=30), n_seeds=3,
-        convergence={"rate": 0.03, "update_step": 40, "max_iterations": 120,
-                     "conv_target": 1e-3},
-        seed=0, backend="pallas",
-    )
-    assert out["best_loss"] < 1e-2
-
-
-def test_pallas_extra_channel_sweep():
-    """Hamiltonian sweep via a constant-weight extra operator channel."""
-    from qoc_tpu.parallel.pallas_batch import make_pallas_batched_loss
-    from qoc_tpu.ops.isomorphism import c_to_r_mat
-
-    p = pi_problem(steps=20)
-    NUM = np.diag([0.0, 1.0]).astype(complex)
-    extra = np.stack([c_to_r_mat(-1j * p.dt * NUM)]).astype(np.float32)
-    bl = make_pallas_batched_loss(p, extra_channel_mats=extra)
-    S = 2
-    u = init_seeds(p, S, jax.random.PRNGKey(0))
-    deltas = jnp.asarray([[0.0], [0.2]], dtype=jnp.float32)
-    reg0, _ = bl(u, deltas)
-    # detuned seed must see a different landscape than the resonant one
-    reg_same, _ = bl(u, jnp.zeros_like(deltas))
-    assert np.isclose(float(reg0[0]), float(reg_same[0]), atol=1e-6)
-    assert not np.isclose(float(reg0[1]), float(reg_same[1]), atol=1e-4)
-
-
 def test_shard_map_runner(eight_devices):
     """Explicit shard_map SPMD step: per-device local seeds, psum'd global
     stats; converges and stats agree with a replicated computation."""
@@ -159,57 +104,9 @@ def test_shard_map_runner(eight_devices):
     assert 0 <= float(stats.mean_loss) <= 1.5
 
 
-def test_pallas_backend_unitary_mode():
-    """Unitary (gate) problems with no_scaling route through the fused
-    kernel: batched loss/gradients match the per-seed XLA forward."""
-    from qoc_tpu.models.forward import make_forward
-    from qoc_tpu.models.system import ControlProblem
-    from qoc_tpu.parallel.pallas_batch import (
-        make_pallas_batched_loss, pallas_batch_supported,
-    )
-
-    p = ControlProblem.build(
-        np.zeros((2, 2), dtype=complex),
-        [q.SIGMA_X, q.SIGMA_Y, q.SIGMA_Z], ["x", "y", "z"],
-        q.hadamard(1), 6.0, 30, [0, 1],
-        maxA=[1.0] * 3, seed=0, no_scaling=True,
-    )
-    assert p.taylor_scaling == 0
-    assert pallas_batch_supported(p, None)
-    bl = make_pallas_batched_loss(p)
-    S = 3
-    u = np.asarray(init_seeds(p, S, jax.random.PRNGKey(2)))
-    reg_losses, fid_losses = bl(jnp.asarray(u))
-    _, loss_fn = make_forward(p, lean=True, engine="scan")
-    for s in range(S):
-        rl, out = loss_fn(jnp.asarray(u[s]))
-        assert np.isclose(float(fid_losses[s]), float(out.loss), atol=1e-5)
-    g_p = jax.grad(lambda u: jnp.sum(bl(u)[0]))(jnp.asarray(u))
-    g_x = np.stack([
-        np.asarray(jax.grad(lambda x: loss_fn(x)[0])(jnp.asarray(u[s])))
-        for s in range(S)
-    ])
-    assert np.allclose(np.asarray(g_p), g_x, atol=1e-4)
-
-
-def test_pallas_unitary_scaling_supported():
-    """Unitary problems with taylor_scaling > 0 ride the fused chain since
-    round 3 (squarings as repeated pre-scaled Taylor applications)."""
-    from qoc_tpu.models.system import ControlProblem
-    from qoc_tpu.parallel.pallas_batch import pallas_batch_supported
-
-    p = ControlProblem.build(
-        np.zeros((2, 2), dtype=complex), [q.SIGMA_X], ["x"],
-        q.hadamard(1), 6.0, 30, [0, 1], maxA=[1.0], seed=0,
-        Taylor_terms=[6, 2],
-    )
-    assert p.taylor_scaling == 2
-    assert pallas_batch_supported(p, None)
-
-
-def test_batched_grape_extra_channels_sweep():
+def test_batched_grape_extra_channels_sweep(capsys):
     """End-to-end detuning sweep via extra channels through the batched
-    runner (pallas kernel path, interpret mode on CPU)."""
+    runner (routed to the column-batched xla-cols backend)."""
     from qoc_tpu.ops.isomorphism import c_to_r_mat
 
     p = pi_problem(steps=30)
@@ -223,5 +120,6 @@ def test_batched_grape_extra_channels_sweep():
                      "conv_target": 1e-3},
         seed=0, extra_channels=(extra_mats, extra_w),
     )
+    assert "xla-cols" in capsys.readouterr().out
     # all detunings admit near-perfect pulses
     assert np.all(out["losses"] < 5e-2)

@@ -34,6 +34,9 @@ from qoc_tpu.optim.adam import (
     init_adam_state, make_adam_optimizer, make_segment_runner,
 )
 from qoc_tpu.optim.convergence import ConvergenceSettings
+from qoc_tpu.utils.verification import (
+    exact_unitary_grad_f64 as numpy_exact_unitary_grad,
+)
 
 
 def numpy_reference_grad(problem, u_base):
@@ -241,90 +244,6 @@ def test_reference_mode_unitary_gradient_matches_numpy():
     assert np.max(np.abs(g_dev - g_np)) / scale < 1e-4
 
 
-def numpy_exact_unitary_grad(problem, u_base):
-    """EXACT float64 gradient through the full unitary-mode forward —
-    Taylor series AND the scaling-squaring branch (the one code path
-    unique to scaling>0 configs like CNOT).  Hand-derived adjoints:
-    squarings E_{j+1} = E_j E_j backprop as
-    Ebar_j = Ebar_{j+1} E_j^T + E_j^T Ebar_{j+1}; the Taylor polynomial
-    backprops via Xbar = sum_n (1/n!) sum_{a+b=n-1} (X^T)^a Ebar (X^T)^b.
-    This is the float64 oracle for BOTH exact-gradient engines (mega
-    kernel and XLA scan)."""
-    p = problem
-    mats = np.asarray(p.mats, dtype=np.float64)
-    U0 = np.asarray(p.U0_iso, np.float64)
-    psi0 = np.asarray(p.initial_vectors, np.float64)
-    tgt = np.asarray(p.target_vectors, np.float64)
-    maxA = np.asarray(p.ops_max_amp, np.float64)
-    order, scaling = p.taylor_terms, p.taylor_scaling
-    N = p.state_num
-    V = psi0.shape[1]
-    T = p.steps
-    M = mats.shape[-1]
-    w = np.concatenate(
-        [np.ones((1, T)), maxA[:, None] * np.sin(u_base)], axis=0)
-
-    fact = [1.0]
-    for n in range(1, order + 1):
-        fact.append(fact[-1] * n)
-
-    def fwd_one(A):
-        X = A / (2.0 ** scaling)
-        Xp = [np.eye(M)]
-        for n in range(1, order + 1):
-            Xp.append(X @ Xp[-1])
-        E = sum(Xp[n] / fact[n] for n in range(order + 1))
-        Es = [E]
-        for _ in range(scaling):
-            Es.append(Es[-1] @ Es[-1])
-        return Xp, Es
-
-    P, saved = [], []
-    for t in range(T):
-        A = np.einsum("k,kij->ij", w[:, t], mats)
-        Xp, Es = fwd_one(A)
-        saved.append((Xp, Es))
-        P.append(Es[-1])
-
-    R = [U0]
-    for t in range(T):
-        R.append(P[t] @ R[t])
-    final = R[-1]
-    L = [np.eye(M)]
-    for t in range(T - 1, -1, -1):
-        L.insert(0, L[0] @ P[t])
-    lefts = L[1:]
-
-    fv = final @ psi0
-    a, b = fv[:N], fv[N:]
-    c, d = tgt[:N], tgt[N:]
-    Rr = np.sum(a * c + b * d)
-    Ii = np.sum(b * c - a * d)
-    loss = 1.0 - (Rr * Rr + Ii * Ii) / (V * V)
-    Gv = np.zeros_like(fv)
-    Gv[:N] = -(2 * Rr * c - 2 * Ii * d) / (V * V)
-    Gv[N:] = -(2 * Rr * d + 2 * Ii * c) / (V * V)
-    Fbar = Gv @ psi0.T
-
-    wbar = np.zeros_like(w)
-    for t in range(T):
-        Pbar = lefts[t].T @ Fbar @ R[t].T
-        Xp, Es = saved[t]
-        Ebar = Pbar
-        for j in range(scaling - 1, -1, -1):
-            E = Es[j]
-            Ebar = Ebar @ E.T + E.T @ Ebar
-        Xbar = np.zeros((M, M))
-        for n in range(1, order + 1):
-            for a_ in range(n):
-                Xbar += (Xp[a_].T @ Ebar @ Xp[n - 1 - a_].T) / fact[n]
-        Abar = Xbar / (2.0 ** scaling)
-        for k in range(1, len(mats)):
-            wbar[k, t] = np.sum(Abar * mats[k])
-    ubar = wbar[1:] * maxA[:, None] * np.cos(u_base)
-    return loss, ubar
-
-
 def _cnot_problem(steps):
     CNOT = np.eye(4, dtype=complex)
     CNOT[2:, 2:] = [[0, 1], [1, 0]]
@@ -385,12 +304,11 @@ def test_exact_unitary_scaling_trajectory_cnot_scale():
     optimizer = make_adam_optimizer(conv)
     run_seg, _ = make_segment_runner(loss_fn, conv, optimizer)
     s = init_adam_state(problem.u0_base, optimizer)
-    from qoc_tpu.ops.pallas_mega import make_mega_segment_runner
+    _, loss_fn_p = make_forward(problem, engine="pscan", lean=True)
+    run_seg_p, _ = make_segment_runner(loss_fn_p, conv, optimizer)
+    sp = init_adam_state(problem.u0_base, optimizer)
 
-    init_m, run_m, unpad = make_mega_segment_runner(problem, conv)
-    sm = init_m(problem.u0_base)
-
-    dev_scan, dev_mega = [], []
+    dev_scan, dev_pscan = [], []
     for i in range(n):
         _, g = numpy_exact_unitary_grad(problem, u)
         m = b1 * m + (1 - b1) * g
@@ -400,29 +318,29 @@ def test_exact_unitary_scaling_trajectory_cnot_scale():
         vh = v / (1 - b2 ** (i + 1))
         u = u - lr * mh / (np.sqrt(vh) + eps)
         s = run_seg(s, jnp.asarray(i + 1, dtype=jnp.int32))
-        sm = run_m(sm, 1)
+        sp = run_seg_p(sp, jnp.asarray(i + 1, dtype=jnp.int32))
         dev_scan.append(np.max(np.abs(np.asarray(s.u_base) - u)))
-        dev_mega.append(np.max(np.abs(unpad(sm.u_base) - u)))
+        dev_pscan.append(np.max(np.abs(np.asarray(sp.u_base) - u)))
 
     # ITERATION 1 is the clean engine-accuracy probe: one full fwd+bwd
     # through the squaring branch + one Adam step, before trajectory
     # chaos mixes.  Both engines sit at the f32 gradient floor there
-    # (measured: scan 7e-5, mega 1.3e-4; a systematic squaring-branch
+    # (measured on the CPU: scan 7e-5; a systematic squaring-branch
     # bug in either engine would land at the 2*lr = 2e-2 sign-flip
     # scale).  Later iterations amplify the floor chaotically — with
     # near-zero moments mh/sqrt(vh) ~ sign(g), so a f32-floor wobble on
     # a near-zero entry moves u by up to 2*lr per iteration; measured
-    # growth is 2-8x/iter (scan 3e-4, mega 8e-3 at iteration 4).  The
+    # growth is 2-8x/iter (scan 3e-4 at iteration 4).  The
     # 4-iteration ceiling asserts the amplification stays below the
     # every-entry-flipped catastrophe (2*lr*n = 8e-2), not engine bit
     # agreement — that is the iteration-1 assert's job.
     assert dev_scan[0] < 5e-4, dev_scan
-    assert dev_mega[0] < 5e-4, dev_mega
+    assert dev_pscan[0] < 5e-4, dev_pscan
     assert dev_scan[-1] < 4e-2, dev_scan
-    assert dev_mega[-1] < 4e-2, dev_mega
+    assert dev_pscan[-1] < 4e-2, dev_pscan
     # per-iteration amplification stays bounded (measured 2-8x/iter): a
     # systematic squaring-branch error at the 1e-3..1e-2 scale would blow
     # through this factor immediately instead of growing from the floor
-    for devs in (dev_scan, dev_mega):
+    for devs in (dev_scan, dev_pscan):
         for a, b in zip(devs, devs[1:]):
             assert b < 12 * max(a, 1e-6), devs

@@ -144,8 +144,8 @@ def test_grape_validates_reg_coeffs_early(tmp_path):
 
 
 def test_routing_line_fires_on_fallback(capsys):
-    """A trajectory cost with V>8-style fallback prints the chosen
-    backend and the reason (VERDICT r4 ask 7)."""
+    """The batch router prints the backend it chose; off the GPU it falls
+    back to the vmapped xla backend."""
     from qoc_tpu.parallel.batch import batched_grape_adam
 
     a = q.annihilate(3)
@@ -165,9 +165,8 @@ def test_routing_line_fires_on_fallback(capsys):
         seed=0,
     )
     cap = capsys.readouterr().out
-    assert "[qoc-tpu] batch backend:" in cap
-    # on CPU the fused kernels are rejected and the reason is printed
-    assert "fallback" in cap or "mega" in cap
+    assert "[qoc-tpu] batch backend: xla (vmapped generic forward)" in cap
+    assert np.all(np.isfinite(out["losses"]))
 
 
 def test_resolved_engine_attribute_matches_routing():
@@ -194,8 +193,7 @@ def test_resolved_engine_attribute_matches_routing():
             for eng in ("auto", "scan", "pscan"):
                 _, loss_fn = make_forward(prob, reg_coeffs=rc,
                                           engine=eng, lean=True)
-                want = resolve_single_engine(prob, rc, "exact", eng,
-                                             lean=True)
+                want = resolve_single_engine(prob, "exact", eng)
                 assert loss_fn.resolved_engine == want, (
                     prob.state_transfer, rc, eng,
                     loss_fn.resolved_engine, want)

@@ -1,6 +1,5 @@
 """Column-batched XLA loss (parallel/xla_batch.py): parity with the
-per-seed forward and the pallas batched loss, and the public batched API
-end-to-end."""
+per-seed forward, and the public batched API end-to-end."""
 
 import numpy as np
 import jax
@@ -10,7 +9,6 @@ import qoc_tpu as q
 from qoc_tpu.models.forward import make_forward
 from qoc_tpu.models.system import ControlProblem
 from qoc_tpu.parallel.batch import batched_grape_adam, init_seeds
-from qoc_tpu.parallel.pallas_batch import make_pallas_batched_loss
 from qoc_tpu.parallel.xla_batch import (
     make_xla_batched_loss,
     xla_cols_supported,
@@ -63,32 +61,9 @@ def test_matches_per_seed_forward():
         np.testing.assert_allclose(float(fid_l[s]), float(want), atol=1e-5)
 
 
-def test_matches_pallas_loss_with_extras_and_reg():
-    problem = _problem()
-    S = 4
-    u = np.asarray(init_seeds(problem, S, jax.random.PRNGKey(1)))
-    extra = np.stack([np.asarray(
-        q.c_to_r_mat(-1j * problem.dt
-                     * np.diag(np.arange(5, dtype=float))))])
-    ew = jnp.asarray(np.linspace(-0.2, 0.2, S)[:, None].astype(np.float32))
-    reg = {"amplitude": 0.1, "dwdt": 0.01}
-    lx = make_xla_batched_loss(problem, reg, extra_channel_mats=extra)
-    lp = make_pallas_batched_loss(problem, reg, extra_channel_mats=extra)
-    rx, fx = lx(jnp.asarray(u), ew)
-    rp, fp = lp(jnp.asarray(u), ew)
-    np.testing.assert_allclose(np.asarray(fx), np.asarray(fp), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(rx), np.asarray(rp), atol=1e-5)
-
-    # gradients agree too
-    gx = jax.grad(lambda a: jnp.sum(lx(a, ew)[0]))(jnp.asarray(u))
-    gp = jax.grad(lambda a: jnp.sum(lp(a, ew)[0]))(jnp.asarray(u))
-    np.testing.assert_allclose(np.asarray(gx), np.asarray(gp), atol=2e-5)
-
-
 def test_v12_matches_vmapped_generic():
-    """V=12 concerned vectors on the column path (the V <= 8 gate was a
-    Pallas lane constraint, lifted for xla-cols in round 5): loss and
-    gradient parity vs the vmapped generic forward."""
+    """V=12 concerned vectors on the column path: loss and gradient
+    parity vs the vmapped generic forward."""
     N = 16
     rng = np.random.default_rng(0)
     A_ = rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N))
@@ -164,9 +139,9 @@ def test_speed_up_unitary_mode_cols():
 
 
 def test_unitary_with_scaling_cols():
-    """V=1 unitary problem with taylor_scaling > 0: the column backends
-    (xla-cols and the fused chain kernel) match the per-seed forward's
-    loss AND gradient — the squaring branch on propagated columns."""
+    """V=1 unitary problem with taylor_scaling > 0: the column backend
+    matches the per-seed forward's loss AND gradient — the squaring branch
+    on propagated columns."""
     a = q.annihilate(3)
     problem = ControlProblem.build(
         np.diag([0.0, 1.0, 1.95]) * 2 * np.pi,
@@ -176,25 +151,21 @@ def test_unitary_with_scaling_cols():
     )
     assert problem.taylor_scaling == 2
     assert xla_cols_supported(problem, None)
-    from qoc_tpu.parallel.pallas_batch import pallas_batch_supported
-    assert pallas_batch_supported(problem, None)
 
     S = 3
     u = np.asarray(init_seeds(problem, S, jax.random.PRNGKey(2)))
     _, loss_fn = make_forward(problem, lean=True, engine="scan")
 
-    for make in (make_xla_batched_loss, make_pallas_batched_loss):
-        batched = make(problem)
-        reg_l, fid_l = batched(jnp.asarray(u))
-        for s in range(S):
-            want, _ = loss_fn(jnp.asarray(u[s]))
-            np.testing.assert_allclose(float(fid_l[s]), float(want),
-                                       atol=1e-5)
-        gb = jax.grad(lambda x: jnp.sum(batched(x)[0]))(jnp.asarray(u))
-        for s in range(S):
-            gs = jax.grad(lambda x: loss_fn(x)[0])(jnp.asarray(u[s]))
-            np.testing.assert_allclose(np.asarray(gb[s]), np.asarray(gs),
-                                       atol=2e-5)
+    batched = make_xla_batched_loss(problem)
+    reg_l, fid_l = batched(jnp.asarray(u))
+    for s in range(S):
+        want, _ = loss_fn(jnp.asarray(u[s]))
+        np.testing.assert_allclose(float(fid_l[s]), float(want), atol=1e-5)
+    gb = jax.grad(lambda x: jnp.sum(batched(x)[0]))(jnp.asarray(u))
+    for s in range(S):
+        gs = jax.grad(lambda x: loss_fn(x)[0])(jnp.asarray(u[s]))
+        np.testing.assert_allclose(np.asarray(gb[s]), np.asarray(gs),
+                                   atol=2e-5)
 
 
 def test_batched_grape_adam_xla_cols_backend():

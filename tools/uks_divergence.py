@@ -1,14 +1,14 @@
 """uks cross-engine divergence analysis (PARITY.md criterion evidence).
 
-PARITY.md compares optimized-pulse prefixes between the fused mega kernel
-and the XLA scan engine.  The CNOT config's 200-iteration deviation sits
+PARITY.md compares optimized-pulse prefixes between the engine Grape's
+GPU auto ladder picks (pscan or associative) and the XLA scan engine.  The CNOT config's 200-iteration deviation sits
 ~3 orders above spin_pi/leakage's, so this tool distinguishes the two
 possible causes:
 
   * **rounding-seeded chaos**: both engines compute the same math with
     different float32 reassociations; a nonconvex Adam trajectory
     amplifies any initial rounding difference exponentially.  Prediction:
-    the mega-vs-scan divergence curve grows SMOOTHLY at the same
+    the auto-vs-scan divergence curve grows SMOOTHLY at the same
     exponential rate as a control experiment — the SAME engine run twice
     from initial pulses differing by one float32 ulp.
   * **a real engine discrepancy** (e.g. in the squaring branch, the one
@@ -17,7 +17,7 @@ possible causes:
     per-iteration gradient mismatch at iteration 0 beyond rounding.
 
 Measures, at every `stride` iterations up to `n_iters`:
-  max|uks_mega - uks_scan|   (cross-engine)
+  max|uks_auto - uks_scan|   (cross-engine)
   max|uks_scan - uks_scan'|  (ulp-perturbation control, same engine)
 and the iteration-0 single-gradient cross-check.  Writes JSON + a
 markdown row block for PARITY.md.
@@ -44,8 +44,8 @@ def divergence_curves(cfg_path: str, n_iters: int = 200, stride: int = 10):
     from qoc_tpu.cli import load_config
     from qoc_tpu.models.forward import make_forward
     from qoc_tpu.models.system import ControlProblem
-    from qoc_tpu.ops.pallas_mega import (
-        make_mega_segment_runner, mega_supported)
+    from qoc_tpu.ops.propagation import (
+        resolve_state_engine, resolve_unitary_engine)
     from qoc_tpu.optim.adam import (
         init_adam_state, make_adam_optimizer, make_segment_runner)
     from qoc_tpu.optim.convergence import ConvergenceSettings
@@ -65,38 +65,23 @@ def divergence_curves(cfg_path: str, n_iters: int = 200, stride: int = 10):
     maxamp = np.asarray(problem.ops_max_amp)[:, None]
     optimizer = make_adam_optimizer(conv)
 
-    # --- engine A: the fused mega kernel when it covers the config;
-    # otherwise the associative (parallel-in-time) XLA engine — the same
-    # pairing Grape's auto-routing gives the parity pack's prefix runs ---
-    use_mega = mega_supported(problem, rc)
-    g_a = None  # iteration-0 gradient of engine A
-    uks_a = {}
-    if use_mega:
-        engine_a = "mega"
-        init_m, run_m, unpad = make_mega_segment_runner(
-            problem, conv, reg_coeffs=rc)
-        sm = init_m(problem.u0_base)
-        for it in range(0, n_iters, stride):
-            sm = run_m(sm, stride)
-            uks_a[it + stride] = maxamp * np.sin(unpad(sm.u_base))
-        sm0 = run_m(init_m(problem.u0_base), 1)
-        g_a = np.asarray(sm0.m)[:, :problem.steps] / 0.1  # m1 = (1-b1) g
+    # --- engine A: the engine Grape's auto ladder picks on the GPU ---
+    M = 2 * problem.state_num
+    if problem.state_transfer:
+        engine_a = resolve_state_engine(M, problem.steps, "exact", True)
     else:
-        # round 5: Grape's auto ladder picks pscan (the matvec-adjoint
-        # chain) at M >= 16 and associative below — mirror that here so
-        # engine A stays the pairing the parity pack's prefix runs use
-        engine_a = ("pscan" if 2 * problem.state_num >= 16
-                    else "associative")
-        _, loss_a = make_forward(problem, lean=True, engine=engine_a,
-                                 reg_coeffs=rc)
-        run_a, _ = make_segment_runner(loss_a, conv, optimizer)
-        s = init_adam_state(problem.u0_base, optimizer)
-        for it in range(0, n_iters, stride):
-            s = run_a(s, jnp.asarray(it + stride, dtype=jnp.int32))
-            uks_a[it + stride] = maxamp * np.sin(np.asarray(s.u_base))
-        g_a = np.asarray(jax.grad(lambda u: loss_a(u)[0])(
-            jnp.asarray(problem.u0_base)))
-    uks_mega = uks_a
+        engine_a = resolve_unitary_engine(
+            M, problem.steps, problem.taylor_scaling, "exact", True)
+    _, loss_a = make_forward(problem, lean=True, engine=engine_a,
+                             reg_coeffs=rc)
+    run_a, _ = make_segment_runner(loss_a, conv, optimizer)
+    s = init_adam_state(problem.u0_base, optimizer)
+    uks_a = {}
+    for it in range(0, n_iters, stride):
+        s = run_a(s, jnp.asarray(it + stride, dtype=jnp.int32))
+        uks_a[it + stride] = maxamp * np.sin(np.asarray(s.u_base))
+    g_a = np.asarray(jax.grad(lambda u: loss_a(u)[0])(
+        jnp.asarray(problem.u0_base)))
 
     # --- engine B: the serial scan (XLA), same segments, + ulp control ---
     _, loss_fn = make_forward(problem, lean=True, engine="scan",
@@ -130,7 +115,7 @@ def divergence_curves(cfg_path: str, n_iters: int = 200, stride: int = 10):
     for it in sorted(uks_scan):
         rows.append({
             "iteration": it,
-            "cross_engine": float(np.max(np.abs(uks_mega[it]
+            "cross_engine": float(np.max(np.abs(uks_a[it]
                                                 - uks_scan[it]))),
             "ulp_control": float(np.max(np.abs(uks_ulp[it]
                                                - uks_scan[it]))),
@@ -173,7 +158,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             f.write(txt)
-    print("\n| iter | mega-vs-scan | ulp control (scan-vs-scan) |")
+    print(f"\n| iter | {rep['engines']} | ulp control (scan-vs-scan) |")
     print("|---|---|---|")
     for r in rep["rows"]:
         print(f"| {r['iteration']} | {r['cross_engine']:.2e} | "
